@@ -1,5 +1,5 @@
 """End-to-end demo: synthetic pair -> flow -> .flo + color wheel + needles
--> ego-motion. Runs anywhere (CPU or TPU); writes into ./demo_out/.
+-> ego-motion. Runs anywhere (CPU or GPU); writes into ./demo_out/.
 
     python examples/demo.py [--size 256x384] [--shift 2.0,0.5] [--pyramid]
 """
@@ -29,13 +29,13 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    from opticalflowhs_tpu import HSConfig, PyramidConfig, flow_with_occlusion
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.egomotion import estimate_egomotion
-    from opticalflowhs_tpu.io.flo import write_flo
-    from opticalflowhs_tpu.io.images import save_image
-    from opticalflowhs_tpu.metrics import epe, interior
-    from opticalflowhs_tpu.viz import flow_to_color, needle_plot
+    from hsflow import HSConfig, PyramidConfig, flow_with_occlusion
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.egomotion import estimate_egomotion
+    from hsflow.io.flo import write_flo
+    from hsflow.io.images import save_image
+    from hsflow.metrics import epe, interior
+    from hsflow.viz import flow_to_color, needle_plot
 
     h, w = (int(t) for t in args.size.split("x"))
     tx, ty = (float(t) for t in args.shift.split(","))

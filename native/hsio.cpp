@@ -1,6 +1,6 @@
-// libhsio — native IO/runtime support for opticalflowhs_tpu.
+// libhsio — native IO/runtime support for hsflow.
 //
-// TPU-native equivalent of the reference's C/C++ host-side IO layer
+// The build's equivalent of the reference's C/C++ host-side IO layer
 // (SURVEY.md §2a R4/R7 and the native-component ledger): the compute runtime
 // is JAX/XLA/PJRT, but frame decode and flow-file IO stay on the host CPU and
 // can bottleneck a streaming pipeline (driver config 4) when done in Python.

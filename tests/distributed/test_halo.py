@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from opticalflowhs_tpu.config import MeshConfig
-from opticalflowhs_tpu.dist.halo import halo_pad
-from opticalflowhs_tpu.dist.mesh import make_mesh, mesh_for_devices
+from hsflow.config import MeshConfig
+from hsflow.dist.halo import halo_pad
+from hsflow.dist.mesh import make_mesh, mesh_for_devices
 
 
 def _labeled(h, w):

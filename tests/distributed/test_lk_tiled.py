@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from opticalflowhs_tpu import LKConfig, PyramidConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.lucas_kanade import lk_solve, lk_solve_tiled
+from hsflow import LKConfig, PyramidConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.lucas_kanade import lk_solve, lk_solve_tiled
 
 TOL = 2e-5
 

@@ -1,7 +1,7 @@
 """Multi-process distributed test (SURVEY.md §4 'multi-host without a
 cluster', upgraded): TWO OS processes with separate JAX runtimes form one
 8-device mesh via jax.distributed.initialize; the spatial "x" axis spans the
-process boundary so every halo ppermute crosses processes (gloo — the DCN
+process boundary so every halo ppermute crosses processes (gloo — the cross-host
 analog). The tiled solve must equal a local single-device solve bitwise."""
 
 import os

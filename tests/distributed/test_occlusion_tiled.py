@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from opticalflowhs_tpu.config import HSConfig, LKConfig, PyramidConfig
-from opticalflowhs_tpu.consistency import flow_with_occlusion, solve_bidirectional
-from opticalflowhs_tpu.data.synthetic import translation_pair
+from hsflow.config import HSConfig, LKConfig, PyramidConfig
+from hsflow.consistency import flow_with_occlusion, solve_bidirectional
+from hsflow.data.synthetic import translation_pair
 
 
 def _mesh(batch, y, x):

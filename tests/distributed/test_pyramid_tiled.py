@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig, MeshConfig, PyramidConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.dist import hs_pyramid_tiled, make_mesh
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.pyramid import hs_pyramid
+from hsflow.config import HSConfig, MeshConfig, PyramidConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.dist import hs_pyramid_tiled, make_mesh
+from hsflow.metrics import epe, interior
+from hsflow.pyramid import hs_pyramid
 
 CFG = HSConfig(alpha=0.5, iters=12, backend="jnp")
 PYR = PyramidConfig(levels=3)
@@ -49,9 +49,9 @@ def test_pyramid_tiled_odd_shapes(shape):
     np.testing.assert_allclose(np.asarray(f.v), np.asarray(ref.v), atol=5e-6)
 
 
-def test_pyramid_tiled_pallas_interpret(pair):
-    """Per-shard Pallas tile kernels inside the sharded pyramid (interpret
-    mode on CPU) == untiled jnp pyramid."""
+def test_pyramid_tiled_pallas_interpret(pair, kernel_mode):
+    """Per-shard kernel sweeps inside the sharded pyramid (interpret mode
+    on CPU) == untiled jnp pyramid."""
     i1, i2, _ = pair
     cfg = HSConfig(alpha=0.5, iters=12, backend="pallas")
     mesh = make_mesh(MeshConfig(batch=1, y=2, x=4))

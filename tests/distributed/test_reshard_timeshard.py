@@ -6,14 +6,14 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from opticalflowhs_tpu.config import HSConfig, MeshConfig
-from opticalflowhs_tpu.dist import make_mesh
-from opticalflowhs_tpu.dist.reshard import (
+from hsflow.config import HSConfig, MeshConfig
+from hsflow.dist import make_mesh
+from hsflow.dist.reshard import (
     space_to_time,
     time_to_space,
     timesharded_pairs,
 )
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.solver import hs_solve
 
 
 def _frames(t=8, h=16, w=32):
@@ -79,7 +79,7 @@ def test_timesharded_flow_matches_unsharded():
 
     def body(fr):
         i1, i2, valid = timesharded_pairs(fr)
-        from opticalflowhs_tpu.solver import precompute, sweeps
+        from hsflow.solver import precompute, sweeps
 
         def single(a, b):
             ex, ey, et, invd = precompute(a, b, cfg)

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from opticalflowhs_tpu import HSConfig, hs_solve
-from opticalflowhs_tpu.data.synthetic import two_motion_pair
-from opticalflowhs_tpu.dist import hs_solve_tiled
+from hsflow import HSConfig, hs_solve
+from hsflow.data.synthetic import two_motion_pair
+from hsflow.dist import hs_solve_tiled
 
 TOL = 2e-6
 
@@ -42,13 +42,6 @@ def test_odd_shape_and_tol():
     ref = hs_solve(i1, i2, cfg)
     out = hs_solve_tiled(i1, i2, cfg, mesh=_mesh(2, 4))
     assert float(jnp.abs(out.u - ref.u).max()) <= TOL
-
-
-def test_rejects_rdma():
-    i1 = jnp.zeros((32, 32))
-    cfg = HSConfig(solver="robust")
-    with pytest.raises(ValueError, match="GSPMD"):
-        hs_solve_tiled(i1, i1, cfg, mesh=_mesh(2, 4), halo_impl="rdma")
 
 
 @pytest.mark.parametrize("solver", ["robust", "multigrid"])

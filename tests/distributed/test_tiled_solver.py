@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig, MeshConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.dist import hs_solve_tiled, make_mesh
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.config import HSConfig, MeshConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.dist import hs_solve_tiled, make_mesh
+from hsflow.solver import hs_solve
 
 CFG = HSConfig(alpha=0.5, iters=24, backend="jnp")
 
@@ -72,7 +72,7 @@ def test_tiled_validation_errors(pair):
 
 @pytest.mark.parametrize("mesh_yx", [(2, 4), (8, 1), (1, 8), (2, 2)])
 @pytest.mark.parametrize("shape", [(37, 115), (63, 61)])
-def test_tiled_arbitrary_shape_matches_untiled(mesh_yx, shape):
+def test_tiled_arbitrary_shape_matches_untiled(mesh_yx, shape, kernel_mode):
     """Prime-ish shapes that do NOT divide the mesh: pad-and-mask inside the
     shard body must reproduce the untiled solve exactly (no silent crop)."""
     h, w = shape
@@ -91,8 +91,8 @@ def test_tiled_arbitrary_shape_matches_untiled(mesh_yx, shape):
 
 
 @pytest.mark.parametrize("s", [1, 3])
-def test_tiled_pallas_backend_matches_untiled(pair, s):
-    """Per-shard Pallas tile kernel (interpret mode on CPU) == untiled jnp."""
+def test_tiled_pallas_backend_matches_untiled(pair, s, kernel_mode):
+    """Per-shard kernel (interpret mode on CPU) == untiled jnp."""
     i1, i2 = pair
     cfg = HSConfig(alpha=0.5, iters=24, backend="pallas")
     mesh = make_mesh(MeshConfig(batch=1, y=2, x=4))
@@ -102,9 +102,9 @@ def test_tiled_pallas_backend_matches_untiled(pair, s):
     np.testing.assert_allclose(np.asarray(f.v), v, atol=2e-6)
 
 
-def test_batched_tiled_pallas_composition(pair):
-    """DP x TP x per-shard Pallas tile kernel (vmap over shard_map over
-    pallas_call) == untiled jnp."""
+def test_batched_tiled_pallas_composition(pair, kernel_mode):
+    """DP x TP x per-shard kernel (vmap over shard_map over pallas_call) ==
+    untiled jnp."""
     i1, i2 = pair
     b1 = jnp.stack([i1, i2])
     b2 = jnp.stack([i2, i1])

@@ -5,17 +5,17 @@ taken every halo block. Rungs: (1) unreachable tol == fixed-budget tiled run
 (budget-cap semantics); (2) tiled tol == untiled sweeps_until EXACTLY when
 the block cadences match (Jacobi tiled == untiled, so deltas — and hence the
 stopping block — are identical); (3) works on SOR and batched DP x TP; (4)
-guards (rdma incompatibility, iters < halo_sweeps).
+guards (iters < halo_sweeps).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig, MeshConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.dist import hs_solve_tiled, make_mesh
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.config import HSConfig, MeshConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.dist import hs_solve_tiled, make_mesh
+from hsflow.solver import hs_solve
 
 
 @pytest.fixture(scope="module")
@@ -98,9 +98,9 @@ def test_pyramid_tiled_tol_matches_untiled(pair):
     """tol flows through the sharded pyramid per level: matched cadences
     (halo_sweeps == block_sweeps) give identical stopping blocks, so the
     tiled pyramid == untiled pyramid to float tolerance."""
-    from opticalflowhs_tpu.config import PyramidConfig
-    from opticalflowhs_tpu.dist import hs_pyramid_tiled
-    from opticalflowhs_tpu.pyramid import hs_pyramid
+    from hsflow.config import PyramidConfig
+    from hsflow.dist import hs_pyramid_tiled
+    from hsflow.pyramid import hs_pyramid
 
     i1, i2, _ = translation_pair(64, 96, 3.0, 0.0, key=9)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -112,14 +112,6 @@ def test_pyramid_tiled_tol_matches_untiled(pair):
     fu = hs_pyramid(i1, i2, cfg, pyr)
     np.testing.assert_allclose(np.asarray(ft.u), np.asarray(fu.u), atol=2e-6)
     np.testing.assert_allclose(np.asarray(ft.v), np.asarray(fu.v), atol=2e-6)
-
-
-def test_tol_guards(pair):
-    i1, i2 = pair
-    mesh = make_mesh(MeshConfig(batch=1, y=2, x=1))
-    with pytest.raises(ValueError, match="rdma"):
-        hs_solve_tiled(i1, i2, HSConfig(tol=1e-4, backend="jnp"),
-                       mesh=mesh, halo_impl="rdma")
 
 
 def test_tol_budget_below_block_shrinks_gracefully(pair):

@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from opticalflowhs_tpu import PyramidConfig, TVL1Config, tvl1_solve, tvl1_solve_batched
-from opticalflowhs_tpu.data.synthetic import translation_pair, two_motion_pair
-from opticalflowhs_tpu.tvl1 import tvl1_solve_tiled
+from hsflow import PyramidConfig, TVL1Config, tvl1_solve, tvl1_solve_batched
+from hsflow.data.synthetic import translation_pair, two_motion_pair
+from hsflow.tvl1 import tvl1_solve_tiled
 
 TOL = 2e-5  # float reassociation across GSPMD partitions
 
@@ -64,7 +64,7 @@ def test_batched_over_mesh_matches_singles():
 
 def test_bidirectional_occlusion_over_mesh():
     """consistency.flow_with_occlusion(tvl1=..., mesh=...) == untiled."""
-    from opticalflowhs_tpu.consistency import flow_with_occlusion
+    from hsflow.consistency import flow_with_occlusion
 
     i1, i2, _ = two_motion_pair(64, 96, (1.5, 0.0), (-1.5, 0.0), key=7)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)

@@ -8,9 +8,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.config import HSConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.solver import hs_solve
 
 
 def test_grad_flows_through_solver():
@@ -48,11 +48,10 @@ def test_jvp_matches_finite_difference():
     np.testing.assert_allclose(float(jvp), float(fd), rtol=5e-2, atol=1e-4)
 
 
-def test_grad_pallas_backend_matches_jnp():
-    """The Pallas sweep kernels carry a custom_vjp (kernel forward, jnp-twin
-    VJP backward), so gradients flow through the production TPU path and
-    equal the jnp backend's (interpret mode on CPU; the real kernel under
-    HSFLOW_TEST_TPU=1 runs the same code)."""
+def test_grad_pallas_backend_matches_jnp(kernel_mode):
+    """The GPU sweep kernel carries a custom_vjp (kernel forward, jnp-twin
+    VJP backward), so gradients flow through the kernel path and equal the
+    jnp backend's (interpret mode on CPU; the compiled kernel on a card)."""
     i1, i2, _ = translation_pair(16, 32, 1.0, 0.0, key=6)
     i1 = jnp.asarray(i1)
     i2 = jnp.asarray(i2)
@@ -72,9 +71,9 @@ def test_grad_pallas_backend_matches_jnp():
     np.testing.assert_allclose(np.asarray(gp2), np.asarray(gj2), atol=1e-5)
 
 
-def test_grad_batched_pallas_matches_jnp():
-    """Gradients through the batched stacked/banded kernels == vmapped jnp."""
-    from opticalflowhs_tpu.batch import hs_solve_batched
+def test_grad_batched_pallas_matches_jnp(kernel_mode):
+    """Gradients through the batch-axis kernel == vmapped jnp."""
+    from hsflow.batch import hs_solve_batched
 
     i1, i2, _ = translation_pair(16, 32, 1.0, 0.0, key=9)
     b1 = jnp.stack([jnp.asarray(i1)] * 2)
@@ -92,9 +91,9 @@ def test_grad_batched_pallas_matches_jnp():
     np.testing.assert_allclose(np.asarray(gp), np.asarray(gj), atol=1e-5)
 
 
-def test_grad_sor_pallas_matches_jnp():
-    """solver="sor" carries the same custom_vjp scheme (kernels/sor.py):
-    gradients flow through the SOR kernel path and equal the jnp backend."""
+def test_grad_sor_pallas_matches_jnp(kernel_mode):
+    """solver="sor" on the pallas backend runs the jnp SOR sweeps (the
+    kernel is Jacobi-only): gradients equal the jnp backend's."""
     i1, i2, _ = translation_pair(16, 32, 1.0, 0.0, key=6)
     i1 = jnp.asarray(i1)
     i2 = jnp.asarray(i2)
@@ -112,8 +111,8 @@ def test_grad_sor_pallas_matches_jnp():
     np.testing.assert_allclose(np.asarray(gp), np.asarray(gj), atol=1e-5)
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 def test_grad_pallas_real_kernel_matches_jnp():
-    """Same as above but through the real Mosaic kernel on hardware."""
-    test_grad_pallas_backend_matches_jnp()
-    test_grad_sor_pallas_matches_jnp()
+    """Same as above but through the compiled kernel on the card."""
+    test_grad_pallas_backend_matches_jnp("gpu")
+    test_grad_sor_pallas_matches_jnp("gpu")

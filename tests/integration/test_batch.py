@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from opticalflowhs_tpu.batch import hs_solve_batched, video_pairs
-from opticalflowhs_tpu.config import HSConfig, PyramidConfig
-from opticalflowhs_tpu.data.synthetic import synthetic_sequence
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.batch import hs_solve_batched, video_pairs
+from hsflow.config import HSConfig, PyramidConfig
+from hsflow.data.synthetic import synthetic_sequence
+from hsflow.solver import hs_solve
 
 
 @pytest.fixture(scope="module")
@@ -65,13 +65,13 @@ def test_batched_rejects_2d():
         hs_solve_batched(jnp.zeros((8, 8)), jnp.zeros((8, 8)))
 
 
-def test_batched_pyramid_pallas_matches_jnp():
-    """Batched pyramid on the pallas backend (vmapped pallas_call chain,
-    incl. the fused derivative kernel under vmap) == jnp backend."""
+def test_batched_pyramid_pallas_matches_jnp(kernel_mode):
+    """Batched pyramid on the pallas backend (one batch-axis kernel solve
+    per level) == jnp backend."""
     import numpy as np
     import jax.numpy as jnp
-    from opticalflowhs_tpu.batch import hs_solve_batched
-    from opticalflowhs_tpu.config import HSConfig, PyramidConfig
+    from hsflow.batch import hs_solve_batched
+    from hsflow.config import HSConfig, PyramidConfig
 
     rng = np.random.default_rng(9)
     i1 = jnp.asarray(rng.uniform(0, 1, (2, 32, 48)).astype(np.float32))
@@ -80,25 +80,3 @@ def test_batched_pyramid_pallas_matches_jnp():
     fp = hs_solve_batched(i1, i2, HSConfig(alpha=0.5, iters=8, backend="pallas"), pyr)
     fj = hs_solve_batched(i1, i2, HSConfig(alpha=0.5, iters=8, backend="jnp"), pyr)
     np.testing.assert_allclose(np.asarray(fp.u), np.asarray(fj.u), atol=2e-6)
-
-
-def test_batched_pyramid_resident_kernel_matches_jnp(monkeypatch):
-    """Batched pyramid with the batched RESIDENT whole-solve kernel forced
-    on at every level (round 4: level solves ride solve_level_batched) ==
-    jnp backend."""
-    import numpy as np
-    import jax.numpy as jnp
-    import opticalflowhs_tpu.kernels.jacobi as jk
-    from opticalflowhs_tpu.batch import hs_solve_batched
-    from opticalflowhs_tpu.config import HSConfig, PyramidConfig
-
-    monkeypatch.setenv("HSFLOW_RESIDENT_SOLVE", "1")
-    monkeypatch.setattr(jk, "_BATCH_IMG_BYTES", 0)  # empty the stacked class
-    rng = np.random.default_rng(10)
-    i1 = jnp.asarray(rng.uniform(0, 1, (2, 48, 64)).astype(np.float32))
-    i2 = jnp.asarray(rng.uniform(0, 1, (2, 48, 64)).astype(np.float32))
-    pyr = PyramidConfig(levels=2)
-    fp = hs_solve_batched(i1, i2, HSConfig(alpha=0.5, iters=6, backend="pallas"), pyr)
-    fj = hs_solve_batched(i1, i2, HSConfig(alpha=0.5, iters=6, backend="jnp"), pyr)
-    np.testing.assert_allclose(np.asarray(fp.u), np.asarray(fj.u), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(fp.v), np.asarray(fj.v), atol=2e-6)

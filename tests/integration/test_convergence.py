@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.data.synthetic import WarpSpec, synthetic_pair
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.config import HSConfig
+from hsflow.data.synthetic import WarpSpec, synthetic_pair
+from hsflow.metrics import epe, interior
+from hsflow.solver import hs_solve
 
 
 def _flow_np(flow):
@@ -70,10 +70,10 @@ def test_hs_energy_monotone_decrease():
     non-increasing over sweeps (SURVEY.md §3.5 convergence residual)."""
     import jax.numpy as jnp
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.metrics import hs_energy
-    from opticalflowhs_tpu.solver import hs_solve
+    from hsflow.config import HSConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.metrics import hs_energy
+    from hsflow.solver import hs_solve
 
     i1, i2, _ = translation_pair(48, 64, 1.0, 0.5, key=17)
     i1 = jnp.asarray(i1)

@@ -14,13 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import HSConfig
-from opticalflowhs_tpu.checkpoint import hs_solve_checkpointed, save_state
-from opticalflowhs_tpu.config import MeshConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.dist import hs_solve_tiled, make_mesh
-from opticalflowhs_tpu.dist import halo as halo_mod
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow import HSConfig
+from hsflow.checkpoint import hs_solve_checkpointed, save_state
+from hsflow.config import MeshConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.dist import hs_solve_tiled, make_mesh
+from hsflow.dist import halo as halo_mod
+from hsflow.solver import hs_solve
 
 
 def _problem():
@@ -38,7 +38,7 @@ def test_corrupt_checkpoint_detected_and_recovered(tmp_path):
         f.write(b"\x00garbage not a zipfile")
     # Detection: load fails -> launcher policy is restart from scratch.
     with pytest.raises(Exception):
-        from opticalflowhs_tpu.checkpoint import load_state
+        from hsflow.checkpoint import load_state
 
         load_state(p, cfg)
     os.unlink(p)

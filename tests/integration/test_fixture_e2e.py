@@ -16,7 +16,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from opticalflowhs_tpu import (
+from hsflow import (
     HSConfig,
     LKConfig,
     PyramidConfig,
@@ -25,9 +25,9 @@ from opticalflowhs_tpu import (
     lk_solve,
     tvl1_solve,
 )
-from opticalflowhs_tpu.io.flo import read_flo, write_flo
-from opticalflowhs_tpu.io.images import load_gray
-from opticalflowhs_tpu.metrics import angular_error, epe, interior
+from hsflow.io.flo import read_flo, write_flo
+from hsflow.io.images import load_gray
+from hsflow.metrics import angular_error, epe, interior
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data")
@@ -91,8 +91,8 @@ def test_lk_and_tvl1_on_fixture():
 def test_full_output_chain(tmp_path):
     """solve -> .flo roundtrip (bitwise) -> KITTI PNG roundtrip -> color
     wheel + needle viz, all from the fixture solve."""
-    from opticalflowhs_tpu.io.kitti import read_flow_png, write_flow_png
-    from opticalflowhs_tpu.viz import flow_to_color, needle_plot
+    from hsflow.io.kitti import read_flow_png, write_flow_png
+    from hsflow.viz import flow_to_color, needle_plot
 
     i1, i2, gt = _load()
     flow = hs_solve(i1, i2, HSConfig(alpha=0.1, iters=300, backend="jnp"))

@@ -40,8 +40,8 @@ def _sequences():
 def _solve(f10, f11):
     import jax.numpy as jnp
 
-    from opticalflowhs_tpu import HSConfig, PyramidConfig, hs_pyramid
-    from opticalflowhs_tpu.io.images import load_gray
+    from hsflow import HSConfig, PyramidConfig, hs_pyramid
+    from hsflow.io.images import load_gray
 
     i1 = jnp.asarray(load_gray(f10))
     i2 = jnp.asarray(load_gray(f11))
@@ -52,8 +52,8 @@ def _solve(f10, f11):
 
 
 def test_epe_vs_ground_truth():
-    from opticalflowhs_tpu.io.flo import read_flo
-    from opticalflowhs_tpu.metrics import epe
+    from hsflow.io.flo import read_flo
+    from hsflow.metrics import epe
 
     seqs = _sequences()
     if not seqs:
@@ -75,8 +75,8 @@ def test_epe_delta_vs_reference_flows():
             "no reference flow dumps (reference checkout is an empty mount, "
             "SURVEY.md §0) — drop <seq>.flo files into data/reference_flows/"
         )
-    from opticalflowhs_tpu.io.flo import read_flo
-    from opticalflowhs_tpu.metrics import epe
+    from hsflow.io.flo import read_flo
+    from hsflow.metrics import epe
 
     deltas = {}
     for seq, f10, f11, _ in _sequences():

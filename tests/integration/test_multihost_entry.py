@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from opticalflowhs_tpu.dist.multihost import init_multihost, main
+from hsflow.dist.multihost import init_multihost, main
 
 
 def test_init_multihost_single_process_noop():
-    # No HSFLOW_* env, no cluster metadata: must fall back silently.
+    # No HSFLOW_* env: a single-process run, nothing to initialize.
     init_multihost()
     assert jax.process_count() == 1
 
@@ -20,7 +20,7 @@ def test_multihost_main_synthetic(capsys, tmp_path):
     assert rc == 0
     printed = capsys.readouterr().out
     assert "ego-motion" in printed
-    from opticalflowhs_tpu.io.flo import read_flo
+    from hsflow.io.flo import read_flo
 
     f = read_flo(out)
     assert f.shape[2] == 2
@@ -30,8 +30,8 @@ def test_multihost_main_synthetic(capsys, tmp_path):
 def test_solver_clean_under_debug_nans():
     """jax_debug_nans raises on any NaN produced inside jit — the solver and
     pyramid must be NaN-free on real inputs (division guards etc.)."""
-    from opticalflowhs_tpu import HSConfig, PyramidConfig, hs_pyramid, hs_solve
-    from opticalflowhs_tpu.data.synthetic import translation_pair
+    from hsflow import HSConfig, PyramidConfig, hs_pyramid, hs_solve
+    from hsflow.data.synthetic import translation_pair
 
     i1, i2, _ = translation_pair(32, 64, 1.0, 0.5, key=2)
     jax.config.update("jax_debug_nans", True)

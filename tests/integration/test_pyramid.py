@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig, PyramidConfig
-from opticalflowhs_tpu.data.synthetic import WarpSpec, synthetic_pair, translation_pair
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.pyramid import (
+from hsflow.config import HSConfig, PyramidConfig
+from hsflow.data.synthetic import WarpSpec, synthetic_pair, translation_pair
+from hsflow.metrics import epe, interior
+from hsflow.pyramid import (
     downsample2x,
     gaussian_pyramid,
     hs_pyramid,
     upsample_flow,
     warp_bilinear,
 )
-from opticalflowhs_tpu.solver import Flow, hs_solve
+from hsflow.solver import Flow, hs_solve
 
 
 def _flow_np(flow):
@@ -113,7 +113,7 @@ def test_warp_bilinear_batched_matches_vmap():
     2-D warp (regression: the batched gather used wrong indexing)."""
     import jax
     import jax.numpy as jnp
-    from opticalflowhs_tpu.pyramid import warp_bilinear
+    from hsflow.pyramid import warp_bilinear
 
     rng = np.random.default_rng(11)
     img = jnp.asarray(rng.uniform(0, 1, (3, 17, 23)).astype(np.float32))
@@ -131,7 +131,7 @@ def test_warp_radius_dial():
     a rough flow shows the clamp (documenting why auto is the default)."""
     import numpy as np
 
-    from opticalflowhs_tpu.pyramid import warp_bilinear, warp_bilinear_tiled
+    from hsflow.pyramid import warp_bilinear, warp_bilinear_tiled
 
     rng = np.random.default_rng(0)
     img = jnp.asarray(rng.uniform(0, 1, (200, 300)).astype(np.float32))

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.batch import hs_solve_batched
-from opticalflowhs_tpu.config import HSConfig, MeshConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.egomotion import estimate_egomotion
-from opticalflowhs_tpu.solver import Flow
-from opticalflowhs_tpu.video import flow_stream, flow_video
+from hsflow.batch import hs_solve_batched
+from hsflow.config import HSConfig, MeshConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.egomotion import estimate_egomotion
+from hsflow.solver import Flow
+from hsflow.video import flow_stream, flow_video
 
 CFG = HSConfig(alpha=0.3, iters=60, backend="jnp")
 
@@ -38,8 +38,8 @@ def test_flow_stream_mesh_dp_matches_unsharded():
     """DP streaming: chunks sharded over the mesh 'batch' axis == the
     unsharded stream, including a remainder chunk that does not divide
     the mesh batch (which silently runs unsharded)."""
-    from opticalflowhs_tpu.dist import make_mesh
-    from opticalflowhs_tpu.video import flow_stream_occlusion
+    from hsflow.dist import make_mesh
+    from hsflow.video import flow_stream_occlusion
 
     vid = _video(t=8)  # 7 pairs -> chunks of 4 + remainder 3
     mesh = make_mesh(MeshConfig(batch=2, y=1, x=1))
@@ -116,7 +116,7 @@ def test_egomotion_batched():
 def test_egomotion_from_real_flow():
     """End-to-end: HS flow of a translating pair -> ego translation."""
     i1, i2, _ = translation_pair(48, 64, 1.0, 0.0, key=4)
-    from opticalflowhs_tpu.solver import hs_solve
+    from hsflow.solver import hs_solve
 
     f = hs_solve(jnp.asarray(i1), jnp.asarray(i2), HSConfig(alpha=0.1, iters=800))
     em = estimate_egomotion(f)
@@ -129,7 +129,7 @@ def test_egomotion_sharded_matches_unsharded():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from opticalflowhs_tpu.dist import make_mesh
+    from hsflow.dist import make_mesh
 
     flow = _model_flow(32, 64, 0.7, -0.2, 0.01, 0.003)
     mesh = make_mesh(MeshConfig(batch=1, y=2, x=4))
@@ -168,8 +168,8 @@ def test_egomotion_explicit_offcenter_is_exact_ls():
     (tx, ty) are reparametrized to the requested center afterwards)."""
     import numpy as np
     import jax.numpy as jnp
-    from opticalflowhs_tpu.solver import Flow
-    from opticalflowhs_tpu.egomotion import estimate_egomotion
+    from hsflow.solver import Flow
+    from hsflow.egomotion import estimate_egomotion
 
     h, w = 40, 60
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -189,10 +189,10 @@ def test_flow_stream_warm_matches_cold_at_reduced_budget():
     import jax.numpy as jnp
     import numpy as np
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.data.synthetic import synthetic_sequence
-    from opticalflowhs_tpu.solver import hs_solve
-    from opticalflowhs_tpu.video import flow_stream_warm
+    from hsflow.config import HSConfig
+    from hsflow.data.synthetic import synthetic_sequence
+    from hsflow.solver import hs_solve
+    from hsflow.video import flow_stream_warm
 
     frames, gt = synthetic_sequence(6, 64, 80, tx=1.0, ty=0.5, key=3)
     cfg_warm = HSConfig(alpha=0.2, iters=25, backend="jnp")
@@ -224,9 +224,9 @@ def test_flow_stream_warm_composes_with_tol():
     pair stops as soon as the warm-started solve converges."""
     import jax.numpy as jnp
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.data.synthetic import synthetic_sequence
-    from opticalflowhs_tpu.video import flow_stream_warm
+    from hsflow.config import HSConfig
+    from hsflow.data.synthetic import synthetic_sequence
+    from hsflow.video import flow_stream_warm
 
     frames, gt = synthetic_sequence(4, 48, 64, tx=1.0, ty=0.0, key=9)
     cfg = HSConfig(alpha=0.2, iters=200, tol=5e-4, block_sweeps=8,
@@ -244,9 +244,9 @@ def test_flow_stream_warm_warp_prior_recovers_large_motion():
     loses it."""
     import numpy as np
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.data.synthetic import synthetic_sequence
-    from opticalflowhs_tpu.video import flow_stream_warm
+    from hsflow.config import HSConfig
+    from hsflow.data.synthetic import synthetic_sequence
+    from hsflow.video import flow_stream_warm
 
     frames, gt = synthetic_sequence(5, 96, 128, tx=3.0, ty=0.0, key=4,
                                     max_freq=0.08)
@@ -272,9 +272,9 @@ def test_flow_stream_warm_fused_scan_matches_per_call():
     modes, across window boundaries (the carry crosses windows)."""
     import numpy as np
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.data.synthetic import synthetic_sequence
-    from opticalflowhs_tpu.video import flow_stream_warm
+    from hsflow.config import HSConfig
+    from hsflow.data.synthetic import synthetic_sequence
+    from hsflow.video import flow_stream_warm
 
     frames, _ = synthetic_sequence(9, 48, 64, tx=0.8, ty=-0.4, key=5)
     cfg = HSConfig(alpha=0.3, iters=20, backend="jnp")

@@ -1,20 +1,20 @@
 """bfloat16 compute path (HSConfig.dtype) — the production serving dtype.
 
-bf16 halves VMEM/HBM traffic and doubles VPU rate; accuracy on flow fields
-degrades gracefully (flow magnitudes are O(px)). Kernel-vs-jnp equivalence
-still holds exactly at matching dtype; flow quality vs fp32 stays within a
-loose bound on synthetic GT.
+bf16 halves the bytes a sweep moves; accuracy on flow fields degrades
+gracefully (flow magnitudes are O(px)). Kernel-vs-jnp equivalence holds to
+bf16 rounding at matching dtype; flow quality vs fp32 stays within a loose
+bound on synthetic GT.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.kernels import jacobi as jk
-from opticalflowhs_tpu.ops import stencils
-from opticalflowhs_tpu.solver import hs_solve, precompute
+from hsflow.config import HSConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.kernels import jacobi as jk
+from hsflow.ops import stencils
+from hsflow.solver import hs_solve, precompute
 
 
 def test_bf16_solver_runs_and_tracks_fp32():

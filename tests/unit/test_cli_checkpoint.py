@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.checkpoint import (
+from hsflow.checkpoint import (
     hs_solve_checkpointed,
     load_state,
     save_state,
 )
-from opticalflowhs_tpu.cli import main as cli_main
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.io.flo import read_flo
-from opticalflowhs_tpu.io.images import save_image
-from opticalflowhs_tpu.solver import Flow, hs_solve
+from hsflow.cli import main as cli_main
+from hsflow.config import HSConfig
+from hsflow.io.flo import read_flo
+from hsflow.io.images import save_image
+from hsflow.solver import Flow, hs_solve
 
 
 @pytest.fixture
@@ -49,7 +49,7 @@ def test_cli_run_kitti_png_output(tmp_path, pair_files):
     out = str(tmp_path / "flow_kitti.png")
     rc = cli_main(["run", p1, p2, "-o", out, "--cfg.iters", "10"])
     assert rc == 0
-    from opticalflowhs_tpu.io.kitti import read_flow_png
+    from hsflow.io.kitti import read_flow_png
 
     f, valid = read_flow_png(out)
     assert f.shape == (64, 80, 2) and valid.all()
@@ -198,7 +198,7 @@ def test_checkpointed_requires_k(tmp_path):
 
 
 def test_log_metrics_jsonl(tmp_path):
-    from opticalflowhs_tpu.logging_util import get_logger, log_metrics
+    from hsflow.logging_util import get_logger, log_metrics
     import json as _json
 
     p = str(tmp_path / "m" / "metrics.jsonl")

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from opticalflowhs_tpu.config import (
+from hsflow.config import (
     HSConfig,
     MeshConfig,
     PyramidConfig,

@@ -6,13 +6,13 @@ import os
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.data.datasets import (
+from hsflow.data.datasets import (
     MiddleburyDataset,
     SintelDataset,
     evaluate_epe,
 )
-from opticalflowhs_tpu.io.flo import write_flo
-from opticalflowhs_tpu.io.images import save_image
+from hsflow.io.flo import write_flo
+from hsflow.io.images import save_image
 
 
 def _img(seed, h=16, w=24):
@@ -90,7 +90,7 @@ def test_evaluate_epe(middlebury_root):
 
 
 def test_evaluate_table(middlebury_root):
-    from opticalflowhs_tpu.data.datasets import evaluate
+    from hsflow.data.datasets import evaluate
 
     ds = MiddleburyDataset(middlebury_root)
     table = evaluate(ds, lambda a, b: np.ones((*a.shape, 2), np.float32))
@@ -105,7 +105,7 @@ def test_evaluate_table(middlebury_root):
 
 
 def test_cli_eval(middlebury_root, capsys, tmp_path):
-    from opticalflowhs_tpu.cli import main
+    from hsflow.cli import main
 
     out = tmp_path / "eval.json"
     rc = main(["eval", "middlebury", str(middlebury_root), "--out", str(out),

@@ -4,9 +4,9 @@ against analytic ground truth and hand-checked stencil arithmetic."""
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.data.synthetic import WarpSpec, synthetic_pair, translation_pair
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.ops import golden
+from hsflow.data.synthetic import WarpSpec, synthetic_pair, translation_pair
+from hsflow.metrics import epe, interior
+from hsflow.ops import golden
 
 
 class TestDerivativesHandChecked:

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.io import flo, images
+from hsflow.io import flo, images
 
 
 class TestFlo:

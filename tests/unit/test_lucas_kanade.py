@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import LKConfig, PyramidConfig, lk_solve, lk_solve_batched
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.lucas_kanade import box_sum
-from opticalflowhs_tpu.metrics import epe, interior
+from hsflow import LKConfig, PyramidConfig, lk_solve, lk_solve_batched
+from hsflow.data.synthetic import translation_pair
+from hsflow.lucas_kanade import box_sum
+from hsflow.metrics import epe, interior
 
 
 def test_box_sum_matches_numpy():
@@ -78,7 +78,7 @@ def test_batched_matches_singles():
 
 def test_flow_stream_lk_matches_batched():
     """Streaming LK (video.flow_stream(lk=...)) == one batched LK solve."""
-    from opticalflowhs_tpu.video import flow_stream
+    from hsflow.video import flow_stream
 
     rng = np.random.default_rng(19)
     frames = jnp.asarray(rng.uniform(0, 1, (5, 48, 64)).astype(np.float32))
@@ -130,7 +130,7 @@ def test_config_validation():
 
 
 def test_runconfig_lk_section():
-    from opticalflowhs_tpu.config import load_config
+    from hsflow.config import load_config
 
     rc = load_config(overrides={"lk.window": "11", "lk.iters": "2",
                                 "method": "lk"})

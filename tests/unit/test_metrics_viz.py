@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import metrics, viz
+from hsflow import metrics, viz
 
 
 class TestEPE:

@@ -7,19 +7,18 @@ solve); (2) the residual vanishes at the Jacobi fixed point (operator and
 rhs define the SAME system the classic sweeps solve); (3) restriction /
 prolongation shape+value sanity on odd sizes; (4) the reason it exists:
 at alpha=1 a couple of V-cycles (~11 fine-sweep work equivalents) reach
-the EPE that Jacobi needs ~1600 sweeps for — measured curves in
-docs/PERFORMANCE.md.
+the EPE that Jacobi needs ~1600 sweeps for.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import multigrid as mg
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.ops import stencils
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow import multigrid as mg
+from hsflow.config import HSConfig
+from hsflow.metrics import epe, interior
+from hsflow.ops import stencils
+from hsflow.solver import hs_solve
 
 
 def _system(h, w, alpha, seed=0):
@@ -93,7 +92,7 @@ def test_vcycle_converges_to_jacobi_fixed_point():
 def test_mg_beats_jacobi_by_100x_at_alpha1():
     """The headline: 2 V-cycles (~11 fine-sweep work equivalents) reach the
     EPE Jacobi needs ~1600 sweeps for on a 1 px translation at alpha=1."""
-    from opticalflowhs_tpu.data.synthetic import translation_pair
+    from hsflow.data.synthetic import translation_pair
 
     i1, i2, gt = translation_pair(256, 384, 1.0, 0.0, key=3)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -112,7 +111,7 @@ def test_mg_beats_jacobi_by_100x_at_alpha1():
 
 
 def test_batched_mg_matches_loop():
-    from opticalflowhs_tpu.batch import hs_solve_batched
+    from hsflow.batch import hs_solve_batched
 
     rng = np.random.default_rng(7)
     i1 = jnp.asarray(rng.uniform(0, 1, (2, 40, 48)).astype(np.float32))
@@ -128,10 +127,10 @@ def test_batched_mg_matches_loop():
 def test_tiled_multigrid_matches_untiled(my, mx):
     """GSPMD-sharded V-cycle == single-device V-cycle (same arithmetic,
     XLA-scheduled halos), at several mesh shapes."""
-    from opticalflowhs_tpu.config import MeshConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.dist import make_mesh
-    from opticalflowhs_tpu.dist.tiled_solver import hs_solve_tiled
+    from hsflow.config import MeshConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.dist import make_mesh
+    from hsflow.dist.tiled_solver import hs_solve_tiled
 
     i1, i2, _ = translation_pair(64, 96, 1.0, 0.0, key=3)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -148,10 +147,10 @@ def test_tiled_multigrid_matches_untiled(my, mx):
 
 def test_tiled_multigrid_odd_shape_and_tol():
     """Uneven GSPMD shardings (odd H x W) and the tol route both match."""
-    from opticalflowhs_tpu.config import MeshConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.dist import make_mesh
-    from opticalflowhs_tpu.dist.tiled_solver import hs_solve_tiled
+    from hsflow.config import MeshConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.dist import make_mesh
+    from hsflow.dist.tiled_solver import hs_solve_tiled
 
     i1, i2, _ = translation_pair(37, 115, 1.0, 0.0, key=5)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -172,10 +171,10 @@ def test_pyramid_tiled_routes_multigrid():
     """Regression: the CLI --mesh route (hs_pyramid_tiled) must run REAL
     V-cycles for solver='multigrid' at any level count (it silently ran
     plain Jacobi sweeps before; multi-level was rejected until round 3)."""
-    from opticalflowhs_tpu.config import MeshConfig, PyramidConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.dist import hs_pyramid_tiled, make_mesh
-    from opticalflowhs_tpu.pyramid import hs_pyramid
+    from hsflow.config import MeshConfig, PyramidConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.dist import hs_pyramid_tiled, make_mesh
+    from hsflow.pyramid import hs_pyramid
 
     i1, i2, _ = translation_pair(64, 96, 1.0, 0.0, key=3)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -189,26 +188,14 @@ def test_pyramid_tiled_routes_multigrid():
     assert float(jnp.abs(ft3.u - fu3.u).max()) <= 5e-6
 
 
-def test_tiled_multigrid_guards():
-    from opticalflowhs_tpu.config import MeshConfig
-    from opticalflowhs_tpu.dist import make_mesh
-    from opticalflowhs_tpu.dist.tiled_solver import hs_solve_tiled
-
-    mesh = make_mesh(MeshConfig(batch=1, y=2, x=4))
-    i = jnp.zeros((4, 32, 64), jnp.float32)
-    with pytest.raises(ValueError, match="GSPMD"):
-        hs_solve_tiled(i[0], i[0], HSConfig(solver="multigrid"), mesh=mesh,
-                       halo_impl="rdma")
-
-
 @pytest.mark.parametrize("shape", [(17, 23), (16, 24), (33, 48)])
 def test_restrict_matches_2d_stride_reference(shape):
-    """The round-5 restrict subsamples each axis inside its own separable
-    filter pass (a 2-D stride-2 slice relayouts its whole operand on TPU —
-    docs/PERFORMANCE.md round-5 stride tables); this pins it BITWISE to
+    """restrict subsamples each axis inside its own separable filter pass
+    (cheaper than one 2-D stride-2 slice of the filtered field); this pins
+    it BITWISE to
     the straightforward filter-everything-then-[::2, ::2] formulation at
     even and odd sizes."""
-    from opticalflowhs_tpu.ops import stencils
+    from hsflow.ops import stencils
 
     rng = np.random.default_rng(7)
     a = jnp.asarray(rng.uniform(-1, 1, shape).astype(np.float32))

@@ -4,9 +4,9 @@ Makefile and asserts equivalence with the pure-Python IO paths."""
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.io import flo as pyflo
-from opticalflowhs_tpu.io import images as pyimages
-from opticalflowhs_tpu.io import native
+from hsflow.io import flo as pyflo
+from hsflow.io import images as pyimages
+from hsflow.io import native
 
 
 @pytest.fixture(scope="session")
@@ -242,8 +242,8 @@ def test_video_feeds_flow_stream(hsio_video, tmp_path):
     synthetic clip through write->decode->flow_stream recovers the pan."""
     import jax.numpy as jnp
 
-    from opticalflowhs_tpu.config import HSConfig
-    from opticalflowhs_tpu.video import flow_stream
+    from hsflow.config import HSConfig
+    from hsflow.video import flow_stream
 
     h, w, t = 64, 96, 5
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -270,7 +270,7 @@ def test_video_bad_source(hsio_video, tmp_path):
 
 def test_cli_video_file_to_viz_video(hsio_video, tmp_path):
     """End-to-end CLI: video-file input -> flows + one viz video output."""
-    from opticalflowhs_tpu.cli import main
+    from hsflow.cli import main
 
     h, w, t = 48, 64, 4
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -292,3 +292,14 @@ def test_cli_video_file_to_viz_video(hsio_video, tmp_path):
     wv, hv, _, _ = native.video_info(vid)
     assert (wv, hv) == (w, h)
     assert len(list(native.stream_video(vid))) == t - 1
+
+
+def test_unloadable_library_falls_back_to_python(monkeypatch, tmp_path):
+    """A libhsio.so that cannot be loaded here (e.g. linked against an
+    OpenCV this host lacks) means "no native library", not a crash."""
+    bad = tmp_path / "libhsio.so"
+    bad.write_bytes(b"not a shared object")
+    monkeypatch.setattr(native, "_LIB_PATH", str(bad))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_lib_tried", False)
+    assert not native.available()

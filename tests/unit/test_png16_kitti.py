@@ -13,7 +13,7 @@ import zlib
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.io import kitti, png16
+from hsflow.io import kitti, png16
 
 
 def _rand_img(rng, h, w, ch=3, dtype=np.uint16):
@@ -100,7 +100,7 @@ class TestPng16:
 class TestNativePng16:
     @pytest.fixture
     def native(self):
-        from opticalflowhs_tpu.io import native
+        from hsflow.io import native
 
         if not native.available() or not (native.codecs() & native.CODEC_OPENCV):
             pytest.skip("libhsio with OpenCV codecs not built")
@@ -153,9 +153,9 @@ class TestKitti:
     def test_dataset_loader(self, tmp_path):
         """Synthetic KITTI tree -> loader yields pairs with sparse GT marked
         via the Middlebury unknown sentinel."""
-        from opticalflowhs_tpu.data.datasets import KittiDataset
-        from opticalflowhs_tpu.io.flo import unknown_mask
-        from opticalflowhs_tpu.io.images import save_image
+        from hsflow.data.datasets import KittiDataset
+        from hsflow.io.flo import unknown_mask
+        from hsflow.io.images import save_image
 
         img_dir = tmp_path / "training" / "image_2"
         gt_dir = tmp_path / "training" / "flow_occ"
@@ -185,7 +185,7 @@ class TestKitti:
 
     def test_epe_respects_valid_mask(self, tmp_path):
         """metrics.epe over KITTI-loaded GT scores only valid pixels."""
-        from opticalflowhs_tpu.metrics import epe
+        from hsflow.metrics import epe
 
         h, w = 8, 8
         gt = np.zeros((h, w, 2), np.float32)

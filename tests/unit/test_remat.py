@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.ops import stencils
-from opticalflowhs_tpu.solver import hs_solve, precompute
+from hsflow.config import HSConfig
+from hsflow.ops import stencils
+from hsflow.solver import hs_solve, precompute
 
 
 def _problem(h=24, w=32, seed=0):
@@ -40,7 +40,7 @@ def test_forward_identical_to_plain_loop(n):
     ("jnp", "jacobi"), ("pallas", "jacobi"),
     ("jnp", "sor"), ("pallas", "sor"),
 ])
-def test_grads_match_plain_loop_reference(backend, solver):
+def test_grads_match_plain_loop_reference(backend, solver, kernel_mode):
     """d(sum of flow)/d(frame2) through the checkpointed solve == through a
     hand-rolled plain fori_loop of the same steps."""
     i1, i2 = _problem(seed=3)

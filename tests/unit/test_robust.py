@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import HSConfig, hs_solve
-from opticalflowhs_tpu.data.synthetic import translation_pair, two_motion_pair
-from opticalflowhs_tpu.metrics import epe, interior
+from hsflow import HSConfig, hs_solve
+from hsflow.data.synthetic import translation_pair, two_motion_pair
+from hsflow.metrics import epe, interior
 
 
 def _epe(f, gt, crop=8):
@@ -72,7 +72,7 @@ def test_smooth_case_parity():
 
 
 def test_batched_matches_singles(seam_case):
-    from opticalflowhs_tpu.batch import hs_solve_batched
+    from hsflow.batch import hs_solve_batched
 
     i1, i2, _ = seam_case
     cfg = HSConfig(alpha=0.1, iters=40, solver="robust")
@@ -106,7 +106,7 @@ def test_differentiable(seam_case):
 
 
 def test_pyramid_integration(seam_case):
-    from opticalflowhs_tpu import PyramidConfig, hs_pyramid
+    from hsflow import PyramidConfig, hs_pyramid
 
     i1, i2, gt = seam_case
     f = hs_pyramid(i1, i2, HSConfig(alpha=0.1, iters=120, solver="robust"),

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.ops import golden
-from opticalflowhs_tpu.solver import Flow, hs_solve
+from hsflow.config import HSConfig
+from hsflow.ops import golden
+from hsflow.solver import Flow, hs_solve
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.ops import golden, stencils
+from hsflow.ops import golden, stencils
 
 
 @pytest.fixture(scope="module")

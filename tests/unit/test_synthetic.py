@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.data.synthetic import (
+from hsflow.data.synthetic import (
     WarpSpec,
     synthetic_pair,
     synthetic_sequence,

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.solver import hs_solve
+from hsflow.config import HSConfig
+from hsflow.solver import hs_solve
 
 
 def _frames(h=48, w=64, seed=0):
@@ -34,7 +34,7 @@ def test_unreachable_tol_equals_budget_run():
 
 
 def test_reachable_tol_matches_converged_flow():
-    from opticalflowhs_tpu.data.synthetic import translation_pair
+    from hsflow.data.synthetic import translation_pair
 
     i1, i2, _ = translation_pair(48, 64, 1.0, 0.0, key=5)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -52,7 +52,7 @@ def test_reachable_tol_matches_converged_flow():
     ("sor", "pallas"),
     ("multigrid", "jnp"),
 ])
-def test_tol_runs_on_every_solver(solver, backend):
+def test_tol_runs_on_every_solver(solver, backend, kernel_mode):
     i1, i2 = _frames(seed=3)
     cfg = HSConfig(alpha=0.5, iters=64, tol=1e-4, solver=solver,
                    omega=1.5, backend=backend)
@@ -65,9 +65,9 @@ def test_pyramid_tol_unreachable_equals_budget_run():
     """tol flows through hs_pyramid (per-level budgets): an unreachable tol
     runs every level's full budget in block_sweeps chunks -> identical to
     the fixed-count pyramid."""
-    from opticalflowhs_tpu.config import PyramidConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.pyramid import hs_pyramid
+    from hsflow.config import PyramidConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.pyramid import hs_pyramid
 
     i1, i2, _ = translation_pair(64, 96, 3.0, 0.0, key=9)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -80,10 +80,10 @@ def test_pyramid_tol_unreachable_equals_budget_run():
 
 
 def test_pyramid_tol_stops_early():
-    from opticalflowhs_tpu.config import PyramidConfig
-    from opticalflowhs_tpu.data.synthetic import translation_pair
-    from opticalflowhs_tpu.metrics import epe, interior
-    from opticalflowhs_tpu.pyramid import hs_pyramid
+    from hsflow.config import PyramidConfig
+    from hsflow.data.synthetic import translation_pair
+    from hsflow.metrics import epe, interior
+    from hsflow.pyramid import hs_pyramid
 
     i1, i2, gt = translation_pair(64, 96, 3.0, 0.0, key=9)
     i1, i2 = jnp.asarray(i1), jnp.asarray(i2)
@@ -99,10 +99,10 @@ def test_pyramid_tol_stops_early():
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
-def test_batched_tol_unreachable_equals_budget(backend):
-    """Both batched routes (stacked kernel / vmap) honor tol: an
+def test_batched_tol_unreachable_equals_budget(backend, kernel_mode):
+    """Both batched routes (batch-axis kernel / vmap) honor tol: an
     unreachable tol reproduces the fixed-budget stack exactly."""
-    from opticalflowhs_tpu.batch import hs_solve_batched
+    from hsflow.batch import hs_solve_batched
 
     i1a, i2a = _frames(seed=1)
     i1b, i2b = _frames(seed=2)
@@ -117,8 +117,8 @@ def test_batched_tol_unreachable_equals_budget(backend):
 
 
 def test_batched_tol_stops_early():
-    from opticalflowhs_tpu.batch import hs_solve_batched
-    from opticalflowhs_tpu.data.synthetic import translation_pair
+    from hsflow.batch import hs_solve_batched
+    from hsflow.data.synthetic import translation_pair
 
     i1, i2, _ = translation_pair(32, 64, 1.0, 0.5, key=11)
     b1 = jnp.stack([jnp.asarray(i1)] * 2)

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.config import HSConfig
-from opticalflowhs_tpu.data.synthetic import translation_pair
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.solver import hs_solve, tune_omega
+from hsflow.config import HSConfig
+from hsflow.data.synthetic import translation_pair
+from hsflow.metrics import epe, interior
+from hsflow.solver import hs_solve, tune_omega
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +62,8 @@ def test_pyramid_tiled_resolves_sentinel(pair):
     """Regression: the tiled pyramid (CLI --mesh route) must tune, not run
     identity sweeps (omega=0 in the SOR update u + omega*(un-u) is a
     no-op that silently returned zero flow)."""
-    from opticalflowhs_tpu.config import MeshConfig, PyramidConfig
-    from opticalflowhs_tpu.dist import hs_pyramid_tiled, make_mesh
+    from hsflow.config import MeshConfig, PyramidConfig
+    from hsflow.dist import hs_pyramid_tiled, make_mesh
 
     i1, i2, _ = pair
     mesh = make_mesh(MeshConfig(batch=1, y=2, x=2))
@@ -78,7 +78,7 @@ def test_pyramid_tiled_resolves_sentinel(pair):
 
 
 def test_bidirectional_resolves_sentinel(pair):
-    from opticalflowhs_tpu.consistency import solve_bidirectional
+    from hsflow.consistency import solve_bidirectional
 
     i1, i2, _ = pair
     cfg = HSConfig(alpha=0.1, iters=30, solver="sor", omega=0.0,
@@ -90,15 +90,15 @@ def test_bidirectional_resolves_sentinel(pair):
 
 def test_guards(pair):
     i1, i2, _ = pair
-    from opticalflowhs_tpu.batch import hs_solve_batched
+    from hsflow.batch import hs_solve_batched
 
     with pytest.raises(ValueError, match="omega"):
         HSConfig(omega=-0.5)
     with pytest.raises(ValueError, match="auto"):
         hs_solve_batched(jnp.stack([i1]), jnp.stack([i2]),
                          HSConfig(solver="sor", omega=0.0))
-    from opticalflowhs_tpu.config import MeshConfig
-    from opticalflowhs_tpu.dist import hs_solve_tiled, make_mesh
+    from hsflow.config import MeshConfig
+    from hsflow.dist import hs_solve_tiled, make_mesh
 
     mesh = make_mesh(MeshConfig(batch=1, y=2, x=1))
     with pytest.raises(ValueError, match="auto"):

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu import (
+from hsflow import (
     HSConfig,
     PyramidConfig,
     TVL1Config,
@@ -24,9 +24,9 @@ from opticalflowhs_tpu import (
     tvl1_solve,
     tvl1_solve_batched,
 )
-from opticalflowhs_tpu.data.synthetic import translation_pair, two_motion_pair
-from opticalflowhs_tpu.metrics import epe, interior
-from opticalflowhs_tpu.tvl1 import (
+from hsflow.data.synthetic import translation_pair, two_motion_pair
+from hsflow.metrics import epe, interior
+from hsflow.tvl1 import (
     _mask_dual,
     divergence,
     grad_forward,
@@ -183,7 +183,7 @@ def test_batched_matches_singles():
 
 
 def test_flow_stream_tvl1_matches_batched():
-    from opticalflowhs_tpu.video import flow_stream
+    from hsflow.video import flow_stream
 
     rng = np.random.default_rng(19)
     frames = jnp.asarray(rng.uniform(0, 1, (5, 48, 64)).astype(np.float32))
@@ -198,9 +198,9 @@ def test_flow_stream_tvl1_matches_batched():
 def test_occlusion_stream_tvl1():
     """flow_stream_occlusion(tvl1=...) yields masks consistent with a
     direct bidirectional batched solve."""
-    from opticalflowhs_tpu.consistency import occlusion_mask
-    from opticalflowhs_tpu.solver import Flow
-    from opticalflowhs_tpu.video import flow_stream_occlusion
+    from hsflow.consistency import occlusion_mask
+    from hsflow.solver import Flow
+    from hsflow.video import flow_stream_occlusion
 
     rng = np.random.default_rng(23)
     frames = jnp.asarray(rng.uniform(0, 1, (3, 48, 64)).astype(np.float32))
@@ -290,7 +290,7 @@ def test_warps_per_level_overrides_and_ignores_hs_iters():
 
 
 def test_runconfig_tvl1_section():
-    from opticalflowhs_tpu.config import load_config
+    from hsflow.config import load_config
 
     rc = load_config(overrides={"tvl1.lambda_": "0.2", "tvl1.iters": "40",
                                 "tvl1.warps_per_level": "3,2,1",
@@ -304,9 +304,9 @@ def test_cli_dispatches_tvl1(tmp_path):
     """End-to-end CLI: --method tvl1 must run the TV-L1 solver (NOT fall
     through to HS — the round-2 silent-wrong-method bug) and write a .flo
     that matches a direct tvl1_solve call."""
-    from opticalflowhs_tpu.cli import main
-    from opticalflowhs_tpu.io.flo import read_flo
-    from opticalflowhs_tpu.io.images import save_image
+    from hsflow.cli import main
+    from hsflow.io.flo import read_flo
+    from hsflow.io.images import save_image
 
     i1, i2, _ = translation_pair(48, 64, 1.0, 0.0, key=17)
     p1, p2 = str(tmp_path / "a.pgm"), str(tmp_path / "b.pgm")
@@ -318,7 +318,7 @@ def test_cli_dispatches_tvl1(tmp_path):
                "--pyramid.levels", "1"])
     assert rc == 0
     got = read_flo(out)
-    from opticalflowhs_tpu.io.images import load_gray
+    from hsflow.io.images import load_gray
 
     ref = tvl1_solve(jnp.asarray(load_gray(p1)), jnp.asarray(load_gray(p2)),
                      TVL1Config(warps=2, iters=10))
@@ -333,9 +333,9 @@ def test_cli_config_file_method_routes_to_tvl1(tmp_path):
     tvl1 label. Proven by matching the direct tvl1_solve output."""
     import json as _json
 
-    from opticalflowhs_tpu.cli import main
-    from opticalflowhs_tpu.io.flo import read_flo
-    from opticalflowhs_tpu.io.images import load_gray, save_image
+    from hsflow.cli import main
+    from hsflow.io.flo import read_flo
+    from hsflow.io.images import load_gray, save_image
 
     i1, i2, _ = translation_pair(48, 64, 1.0, 0.0, key=17)
     p1, p2 = str(tmp_path / "a.pgm"), str(tmp_path / "b.pgm")
@@ -361,8 +361,8 @@ def test_median3_network_equals_sort():
     including ties — the network is ~4x cheaper (round 5)."""
     import numpy as np
 
-    from opticalflowhs_tpu import tvl1
-    from opticalflowhs_tpu.ops import stencils
+    from hsflow import tvl1
+    from hsflow.ops import stencils
 
     def median3_sort(a):
         up, dn = stencils.shift_up_row(a), stencils.shift_down_row(a)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opticalflowhs_tpu.pyramid import warp, warp_bilinear, warp_bilinear_tiled
+from hsflow.pyramid import warp, warp_bilinear, warp_bilinear_tiled
 
 
 def _img(h, w, seed=0):

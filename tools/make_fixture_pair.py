@@ -24,9 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from opticalflowhs_tpu.io.flo import write_flo
-from opticalflowhs_tpu.io.images import save_image
-from opticalflowhs_tpu.io.png16 import write_png
+from hsflow.io.flo import write_flo
+from hsflow.io.images import save_image
+from hsflow.io.png16 import write_png
 
 H, W = 48, 64
 DU, DV = 0.60, -0.35  # GT flow (x, y) px — sub-pixel on purpose
